@@ -13,7 +13,7 @@ cd "$(dirname "$0")/.."
 NX=${NX:-64}            # lattice dimensions (runtime — no rebuild per size)
 NT=${NT:-64}
 RANKS_X=1        # device-mesh shape; ranks_x*ranks_t must be <= jax.device_count()
-RANKS_T=1        #   (on a single TPU chip use 1 1; sharding needs a multi-chip mesh)
+RANKS_T=1        #   (on a single device use 1 1; sharding needs a multi-device mesh)
 M0=0.2           # bare mass
 BETA=4           # coupling
 MD_STEPS=10      # molecular-dynamics steps

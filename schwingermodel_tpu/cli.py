@@ -8,7 +8,7 @@ order on stderr / reads them from stdin, so existing parameter pipes
     python -m schwingermodel_tpu < parameters
 
 ranks_x/ranks_t select the device-mesh shape (the reference's MPI rank
-grid); on a single chip use 1 1. Lattice dims are runtime flags (--nx/--nt)
+grid); on a single device use 1 1. Lattice dims are runtime flags (--nx/--nt)
 instead of the reference's compile-time CMake constants (CMakeLists.txt:17-18)
 -- no rebuild per size. Everything else (chains, quenched mode, condensate
 measurement, checkpoint/resume, cold start, dtype) is new capability exposed
@@ -38,7 +38,7 @@ def _prompt(question: str, cast, interactive: bool):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu",
-        description="TPU-native HMC for the two-flavor Schwinger model",
+        description="HMC for the two-flavor Schwinger model (JAX/XLA)",
     )
     p.add_argument("--nx", type=int, default=64, help="lattice extent in x")
     p.add_argument("--nt", type=int, default=64, help="lattice extent in t")
@@ -64,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="mixed-precision refinement on f32 runs: f32 inner "
                         "solves + f64 true-residual accumulation, meeting "
-                        "the reference's 1e-10 contract on TPU (default: on "
-                        "for float32 runs; --no-cg-refine for the loose "
+                        "the reference's 1e-10 contract (default: on for "
+                        "float32 runs; --no-cg-refine for the loose "
                         "f32-only solver)")
     p.add_argument("--no-cg-refine", dest="cg_refine", action="store_false")
     p.add_argument("--cg-inner-tol", type=float, default=1e-5,
@@ -76,19 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "under --cg-refine, else --cg-tol; the Metropolis "
                         "action solves always run at --cg-tol -- see "
                         "config.CGParams.force_tol)")
-    p.add_argument("--mre-history", type=int, default=0,
-                   help="refined-contract forecast history depth: >= 2 "
-                        "MRE-projects each solve's start onto the span of "
-                        "the last K solutions in-kernel; 0 = the 2nd-order "
-                        "extrapolation (default)")
     p.add_argument("--cg-refine-impl", choices=["auto", "x64", "dfloat"],
                    default="auto",
-                   help="true-residual arithmetic: x64 (f64 emulation; "
-                        "unavailable on some TPU backends) or dfloat "
-                        "(double-float f32 pairs, solvers/dfloat.py). "
-                        "auto = dfloat on TPU, x64 elsewhere")
+                   help="true-residual arithmetic: x64 (native f64) or "
+                        "dfloat (double-float f32 pairs, solvers/dfloat.py; "
+                        "needs a compiler that keeps error-free transforms, "
+                        "checked at start-up). auto = x64")
     p.add_argument("--dtype", choices=["float32", "float64"], default=None,
-                   help="default: float32 on TPU, float64 on CPU")
+                   help="default: float32 on GPU, float64 on CPU "
+                        "(utils/device.py)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--chains", type=int, default=1,
                    help="independent vmapped chains")
@@ -135,14 +131,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a checkpoint at the end of the run")
     p.add_argument("--no-simdata", action="store_true")
     p.add_argument("--platform", default=None,
-                   help="force a jax platform (cpu/tpu)")
+                   help="force a jax platform (cpu/cuda)")
     p.add_argument("--num-cpu-devices", type=int, default=None,
                    help="virtual CPU device count (sharding tests without "
-                        "TPU hardware)")
+                        "several GPUs)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="multi-host: jax.distributed coordinator address "
                         "(also honored: JAX_COORDINATOR_ADDRESS / SLURM / "
-                        "Cloud TPU autodetection)")
+                        "Open MPI autodetection)")
     p.add_argument("--num-processes", type=int, default=None,
                    help="multi-host: total process count")
     p.add_argument("--process-id", type=int, default=None,
@@ -185,32 +181,34 @@ def main(argv=None) -> int:
     primary = multihost.is_primary()
     echo = print if primary else (lambda *a, **k: None)
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = args.dtype or ("float32" if on_tpu else "float64")
-    if dtype == "float64" and not on_tpu:
-        jax.config.update("jax_enable_x64", True)
-    # Mixed-precision refinement: default ON for f32 runs, so the shipped
-    # TPU configuration meets the reference's 1e-10 solver contract
-    # (src/main.cpp:26-27) out of the box. On TPU the true residual runs in
-    # double-float arithmetic (solvers/dfloat.py -- no x64 mode, which this
-    # TPU backend cannot execute); elsewhere in f64.
+    # Precision policy of this device (utils/device.py): float32 with f64
+    # true-residual refinement on a GPU, so the shipped configuration meets
+    # the reference's 1e-10 solver contract (src/main.cpp:26-27) out of the
+    # box; float64 throughout on the CPU.
+    from schwingermodel_tpu.utils.device import device_policy
+
+    try:
+        policy = device_policy()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    dtype = args.dtype or policy.real_dtype
     cg_refine = args.cg_refine if args.cg_refine is not None else (
         dtype == "float32")
     if dtype != "float32":
         cg_refine = False
     refine_impl = args.cg_refine_impl
     if refine_impl == "auto":
-        refine_impl = "dfloat" if on_tpu else "x64"
-    if cg_refine and refine_impl == "x64":
+        refine_impl = "x64"
+    if dtype == "float64" or (cg_refine and refine_impl == "x64"):
         jax.config.update("jax_enable_x64", True)
     if cg_refine and refine_impl == "dfloat":
         from schwingermodel_tpu.solvers.dfloat import eft_selfcheck
 
         if not eft_selfcheck():
             raise SystemExit(
-                "--cg-refine (dfloat impl): this backend's compiler breaks "
+                "--cg-refine-impl dfloat: this backend's compiler breaks "
                 "the error-free float transforms double-float arithmetic "
-                "needs (XLA:CPU contracts mul+add to FMA). Use "
+                "needs (an LLVM backend that contracts mul+add to FMA). Use "
                 "--cg-refine-impl x64, or on CPU set "
                 "XLA_FLAGS=--xla_backend_optimization_level=0")
 
@@ -262,7 +260,7 @@ def main(argv=None) -> int:
             beta=args.beta, m0=args.m0, md_steps=args.md_steps,
             trajectory_length=args.tau, quenched=args.quenched,
             even_odd=even_odd, cg_forecast=args.cg_forecast,
-            integrator=args.integrator, mre_history=args.mre_history,
+            integrator=args.integrator,
             hasenbusch_dm=args.hasenbusch_dm,
             cg=CGParams(tol=cg_tol, max_iter=args.cg_max_iter,
                         refine=cg_refine, refine_impl=refine_impl,
@@ -293,8 +291,8 @@ def main(argv=None) -> int:
     rx, rt = shape[-2:]
     n_mesh = rc * rx * rt
     if distributed and n_mesh <= 1:
-        # multi-host with no explicit mesh: lattice axes on local ICI
-        # devices, chains across hosts over DCN (parallel/multihost.py)
+        # multi-host with no explicit mesh: lattice axes on each host's
+        # local devices, chains across hosts (parallel/multihost.py)
         mesh = multihost.multihost_mesh(lattice.Nx, lattice.Nt)
         rc, rx, rt = mesh.devices.shape
         if run.n_chains % rc:
@@ -356,6 +354,9 @@ def main(argv=None) -> int:
 
     from schwingermodel_tpu.utils.metrics import profiler_trace
 
+    if primary:
+        # SimData, saved and ill configurations all land here
+        os.makedirs(run.out_dir, exist_ok=True)
     with profiler_trace(args.profile):
         result = run_hmc(
             lattice, hmc, run,
@@ -376,6 +377,11 @@ def main(argv=None) -> int:
         print(f"Chiral condensate: {s['mean']:.10g} +- {s['error']:.3g} "
               f"(tau_int {s['tau_int']:.2f})")
     echo(f"Acceptance rate: {result.acceptance_rate:.17g}")
+    n_traj = (result.traj_index - start_traj) * max(run.n_chains, 1)
+    echo(f"<exp(-dH)> = {result.exp_mdH_mean:.17g}")
+    echo(f"CG iterations per trajectory = "
+         f"{result.cg_iters_total / max(n_traj, 1):.6g}")
+    echo(f"All CG solves converged: {result.all_converged}")
     echo(f"Execution time = {result.elapsed_seconds:.6f} s")
     echo("-------------------------------")
     if result.n_ill:

@@ -31,8 +31,8 @@ class LatticeParams:
     Nx: int = 64
     Nt: int = 64
     # Real dtype of angles/momenta; complex fields use the paired complex dtype.
-    # float64 needs jax.config.update("jax_enable_x64", True) (CPU validation);
-    # float32 is the TPU-native default.
+    # float64 needs jax.config.update("jax_enable_x64", True) (the CPU
+    # policy); float32 is the GPU working precision (utils/device.py).
     real_dtype: str = "float32"
 
     @property
@@ -65,17 +65,14 @@ class CGParams:
     max_iter: int = 10000
     # Mixed-precision iterative refinement (solvers/refine.py): on f32 runs,
     # accumulate the solution and the true residual in f64 while the inner
-    # CG sweeps run in fast f32 (fused Pallas kernel or jnp), so `tol` is met
-    # in the reference's own f64 sense (src/main.cpp:26-27) on TPU hardware.
-    # Ignored when the working dtype is already float64. Needs
-    # jax_enable_x64 (the CLI turns it on when this is set).
+    # CG sweeps run in f32, so `tol` is met in the reference's own f64 sense
+    # (src/main.cpp:26-27). Ignored when the working dtype is already
+    # float64. The x64 impl needs jax_enable_x64 (the CLI turns it on).
     refine: bool = False
-    # Refinement arithmetic for the true residual: "x64" uses f64 (needs
-    # jax_enable_x64; native on CPU, unavailable on some TPU backends),
-    # "dfloat" uses double-float f32-pair arithmetic (solvers/dfloat.py;
-    # TPU-native, no x64 anywhere -- requires a backend that preserves
-    # error-free transforms, dfloat.eft_selfcheck). "auto" = dfloat on TPU,
-    # x64 elsewhere.
+    # Refinement arithmetic for the true residual: "x64" uses native f64
+    # (needs jax_enable_x64), "dfloat" uses double-float f32-pair
+    # arithmetic (solvers/dfloat.py; requires a backend that preserves
+    # error-free transforms, dfloat.eft_selfcheck). "auto" = x64.
     refine_impl: str = "auto"
     # Relative tolerance of each f32 inner solve; the refinement loop
     # contracts the true residual by ~max(inner_tol, kappa*eps_f32) per pass.
@@ -98,30 +95,12 @@ class CGParams:
 
     # f64-grade CG fallback on refinement stagnation: when the f32 inner
     # solves hit their conditioning floor (kappa(A)*eps_f32 >~ 1 on the
-    # near-critical exceptional configurations -- docs/PERF.md round-4
-    # envelope note), continue the solve as a double-float (dfloat impl /
-    # packed RU kernel) or plain f64 (x64 impl) CG recursion from the
-    # refined state, so the shipped tol converges wherever the reference's
-    # own f64 CG does (src/conjugate_gradient.cpp:4-66). Zero cost when
-    # refinement converges (the fallback loops never execute).
+    # near-critical exceptional configurations), continue the solve as a
+    # plain f64 (x64 impl) or double-float (dfloat impl) CG recursion from
+    # the refined state, so the shipped tol converges wherever the
+    # reference's own f64 CG does (src/conjugate_gradient.cpp:4-66). Zero
+    # cost when refinement converges (the fallback loops never execute).
     fallback: bool = True
-
-    # Depth-gated df certification of the MD force solves (packed RU
-    # kernel): the f32 recursive exit is trusted only while the recursion
-    # segment since the last df true-residual replacement is shallow
-    # (< 192 iterations -- drift ~ eps_f32 * accumulated corrections,
-    # provably below resolved_force_tol()); deeper segments replace with
-    # the df TRUE residual and the reliable-update loop chases it below
-    # ftol, exactly like the action solves. Easy solves (the tau=0.1 demo
-    # regime, <200 iters) pay zero extra df applies; deep near-critical
-    # solves become df-accurate (the pure-trusted exit measured 3.9e-7
-    # true residual on a solve whose recursive exit claimed 1e-8 -- 32x32
-    # beta=2 m0=-0.19, round-5 probe). False restores the pure-trusted
-    # exit (flag and force accuracy at the f32 drift floor on deep
-    # solves). The accept/reject absorbs force error either way (dH is
-    # exact), so this affects force accuracy and flag honesty, never the
-    # sampled distribution.
-    certify_forces: bool = True
 
     def resolved_force_tol(self) -> float:
         if self.force_tol is not None:
@@ -177,25 +156,6 @@ class HMCParams:
     # detailed-balance diagnostics (<exp(-dH)> = 1) are unaffected at the
     # solver tolerance (tested).
     cg_forecast: bool = True
-    # Fused Pallas CG kernel (ops/pallas_eo.py): the entire (Dhat Dhat^+)
-    # solve -- stencil, dots, convergence loop -- as one TPU kernel with all
-    # vectors pinned in VMEM; ~8x faster per iteration than the XLA-level
-    # solver at 64x64 (kernel-launch overhead dominates small-field fusions).
-    # None = auto: on when even_odd and f32 and single-device on a TPU
-    # backend. True forces it (interpret mode off-TPU, for tests); False
-    # always uses the jnp solver. The sharded path always uses the jnp
-    # solver (ppermute halos).
-    fused_cg: Optional[bool] = None
-    # Lane-packed fused trajectory (hmc/packed.py): the whole MD force step
-    # as one Pallas kernel. None = auto: engage only on a TPU backend (the
-    # kernels run in slow interpret mode elsewhere). True forces it
-    # (interpret mode off-TPU, for tests); False always uses the sampler.
-    packed: Optional[bool] = None
-    # Refined-contract forecast history depth (packed path): >= 2 MRE-
-    # projects each solve's start onto the span of the last K solutions
-    # (chronological inversion) inside the solve kernel; 0 keeps the
-    # fixed 2nd-order extrapolation. Ignored when cg_forecast is off.
-    mre_history: int = 0
     # MD integrator: "leapfrog" reproduces the reference's position-first
     # scheme (src/hmc.cpp:63-103, MD_steps-1 force evaluations); "omelyan"
     # is the 2nd-order minimum-norm (2MN) scheme of Omelyan/Mryglod/Folk

@@ -54,6 +54,13 @@ def save_checkpoint(
     np.savez(path, **arrays)
 
 
+def _known(cls, kw: dict) -> dict:
+    """The entries of `kw` that are fields of dataclass `cls`: options that
+    a later version removed (kernel-routing flags) are dropped on load."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in kw.items() if k in names}
+
+
 def load_checkpoint(path: str) -> dict:
     """Returns dict with theta, key, traj_index, lattice, hmc, run, chains."""
     with np.load(path, allow_pickle=False) as z:
@@ -62,8 +69,8 @@ def load_checkpoint(path: str) -> dict:
             raise ValueError(
                 f"checkpoint from a newer format ({meta['format_version']})"
             )
-        hmc_kw = dict(meta["hmc"])
-        hmc_kw["cg"] = CGParams(**hmc_kw.pop("cg"))
+        hmc_kw = _known(HMCParams, meta["hmc"])
+        hmc_kw["cg"] = CGParams(**_known(CGParams, hmc_kw.pop("cg")))
         run_kw = dict(meta["run"])
         if run_kw.get("mesh_shape") is not None:
             run_kw["mesh_shape"] = tuple(run_kw["mesh_shape"])

@@ -170,7 +170,7 @@ class SchwingerModel:
 
     def _to_working(self, v: jax.Array) -> jax.Array:
         """Cast a (possibly f64-refined) complex field to the working
-        complex dtype via split-real converts (TPU-safe)."""
+        complex dtype (split-real converts, solvers/refine.to_c64)."""
         if v.dtype == self.lattice.cdtype:
             return v
         from schwingermodel_tpu.solvers.refine import to_c64
@@ -178,14 +178,13 @@ class SchwingerModel:
         return to_c64(v)
 
     def _refine_impl(self) -> str:
-        """Resolve cg.refine_impl ("auto" -> dfloat on TPU, x64 elsewhere).
+        """Resolve cg.refine_impl ("auto" -> x64 on every platform).
 
-        dfloat (solvers/dfloat.py) runs the true residual in double-float
-        f32 pairs -- the only option on TPU backends where x64 programs
-        cannot execute; x64 uses complex128 accumulation (native on CPU)."""
+        x64 runs the true residual in native complex128; dfloat
+        (solvers/dfloat.py) runs it in double-float f32 pairs."""
         impl = self.hmc.cg.refine_impl
         if impl == "auto":
-            return "dfloat" if jax.default_backend() == "tpu" else "x64"
+            return "x64"
         if impl not in ("x64", "dfloat"):
             raise ValueError(f"cg.refine_impl={impl!r}: want auto|x64|dfloat")
         return impl
@@ -201,8 +200,7 @@ class SchwingerModel:
         if self._refine_impl() == "x64" and not jax.config.jax_enable_x64:
             raise RuntimeError(
                 "cg.refine with the x64 impl needs jax_enable_x64 (the CLI "
-                "enables it with --cg-refine); on backends without x64 use "
-                "cg.refine_impl='dfloat'")
+                "enables it with --cg-refine)")
         return True
 
     def fermion_links_hi(self, theta: jax.Array) -> jax.Array:
@@ -221,8 +219,8 @@ class SchwingerModel:
     def _solve_eo_refined(self, theta: jax.Array, ops: eo.EOOperators,
                           b: jax.Array, x0=None, tol: float | None = None):
         """(Dhat Dhat^+)^{-1} b meeting cg.tol at f64 grade: f32 inner
-        solves (fused Pallas kernel when enabled) + true-residual
-        refinement in f64 (x64 impl) or double-float (dfloat impl).
+        solves + true-residual refinement in f64 (x64 impl) or
+        double-float (dfloat impl).
 
         Returns (CGResult, x_df): x_df is the DFComplex solution under the
         dfloat impl (for df-accurate action dots), else None."""
@@ -263,91 +261,22 @@ class SchwingerModel:
         stagnation (cg.fallback; solvers/refine.py), 0 = disabled."""
         return int(self.hmc.cg.max_iter) if self.hmc.cg.fallback else 0
 
-    def _use_fused_cg(self) -> bool:
-        """Resolve HMCParams.fused_cg (None = auto; trace-time decision)."""
-        if self.hmc.fused_cg is not None:
-            return self.hmc.fused_cg and self.hmc.even_odd and not self.geom.is_sharded
-        return (
-            self.hmc.even_odd
-            and not self.geom.is_sharded
-            and self.lattice.rdtype == jnp.float32
-            and jax.default_backend() == "tpu"
-        )
-
     def _solve_eo_lo(self, ops: eo.EOOperators, b: jax.Array, x0=None,
                      tol: float | None = None) -> CGResult:
-        """Working-precision (Dhat Dhat^+)^{-1} b: fused Pallas kernel when
-        enabled, else the jnp CG (identical semantics; see ops/pallas_eo.py).
-        `tol` overrides cg.tol (the refinement loop passes cg.inner_tol)."""
+        """Working-precision (Dhat Dhat^+)^{-1} b with the jnp CG. `tol`
+        overrides cg.tol (the refinement loop passes cg.inner_tol)."""
         tol = self.hmc.cg.tol if tol is None else tol
-        if self._use_fused_cg():
-            from schwingermodel_tpu.ops.pallas_eo import cg_solve_eo_fused
-
-            res = cg_solve_eo_fused(
-                ops.Ue, ops.Uo, b, b if x0 is None else x0,
-                m0=float(self.hmc.m0), tol=float(tol),
-                max_iter=int(self.hmc.cg.max_iter),
-                interpret=jax.default_backend() != "tpu",
-            )
-            return CGResult(x=res.x, iters=res.iters, converged=res.converged,
-                            rel_residual=res.rel_residual)
-        from schwingermodel_tpu.ops import pallas_halo
-
-        Nx_l, Nth_l = ops.Ue.shape[-2:]
-        if (pallas_halo.fused_supported(
-                self.geom, Nx_l, Nth_l, self.lattice.rdtype)
-                and self._use_fused_sharded()):
-            # the sharded fast path: whole per-iteration local work (apply
-            # + all four CG dots) in ONE kernel; 4 ppermutes + 1 psum ride
-            # XLA (ops/pallas_halo.py)
-            return pallas_halo.cg_solve_sharded_fused(
-                self.geom, ops.Uf, self.hmc.m0, b, x0, tol=float(tol),
-                max_iter=int(self.hmc.cg.max_iter),
-                sync_pred=self.geom.sync_any,
-                interpret=jax.default_backend() != "tpu")
         return self._cg(self._eo_cg_operator(ops), b, x0, tol)
-
-    def _use_fused_sharded_force(self, ops: "eo.EOOperators", beta) -> bool:
-        """The fused per-shard force kernel applies: lattice-sharded mesh
-        with wide-halo-capable local blocks, f32 working dtype, the fused
-        sharded path enabled, and a STATIC beta (the kernel bakes it in;
-        traced beta overrides -- beta scans -- keep the jnp force)."""
-        from schwingermodel_tpu.ops import pallas_halo
-
-        if not self.geom.is_sharded or not isinstance(beta, float):
-            return False
-        Nx_l, Nth_l = ops.Ue.shape[-2:]
-        return (pallas_halo.fused_supported(
-                    self.geom, Nx_l, Nth_l, self.lattice.rdtype)
-                and self._use_fused_sharded())
-
-    def _use_fused_sharded(self) -> bool:
-        """fused_cg semantics for the SHARDED fused apply (ops/pallas_halo):
-        None = auto (TPU backend only), True forces (interpret off-TPU,
-        tests), False keeps the jnp wide-halo composite."""
-        if self.hmc.fused_cg is not None:
-            return bool(self.hmc.fused_cg)
-        return jax.default_backend() == "tpu"
 
     def _eo_cg_operator(self, ops: eo.EOOperators):
         """The (Dhat Dhat^+) closure for the jnp CG loop. On a sharded mesh
         with big-enough local blocks, the wide-halo composite exchanges one
         width-4 ring per apply -- 4 ppermutes/iteration instead of 16
-        (ops/eo_halo.py); links extend once per solve here. On f32 the
-        local compute of each apply additionally fuses into one Pallas
-        program per shard (ops/pallas_halo.py) -- the sharded fast path."""
+        (ops/eo_halo.py); links extend once per solve here."""
         from schwingermodel_tpu.ops import eo_halo
 
         Nx_l, Nth_l = ops.Ue.shape[-2:]
         if eo_halo.supported(self.geom, Nx_l, Nth_l):
-            from schwingermodel_tpu.ops import pallas_halo
-
-            if (pallas_halo.fused_supported(
-                    self.geom, Nx_l, Nth_l, self.lattice.rdtype)
-                    and self._use_fused_sharded()):
-                return pallas_halo.EOOperatorsHaloFused(
-                    self.geom, ops.Uf, ops.m0,
-                    interpret=jax.default_backend() != "tpu").normal
             return eo_halo.EOOperatorsHalo(self.geom, ops.Uf, ops.m0).normal
         return ops.normal
 
@@ -370,8 +299,8 @@ class SchwingerModel:
         dfloat impl (for df-accurate action dots), else None. The dfloat
         impl runs the true residual through ops/eo_df.FullOperatorsDF --
         complex128 never appears, so this path works with x64 disabled (the
-        default TPU configuration; the x64 impl's f64 casts would silently
-        downcast there and stall refinement)."""
+        x64 impl's f64 casts would silently downcast there and stall
+        refinement)."""
         m0 = self.hmc.m0
         tol = self.hmc.cg.tol if tol is None else tol
 
@@ -423,7 +352,7 @@ class SchwingerModel:
         return dops.spinor_dot_re_batch(self.geom, pairs)
 
     def _cg(self, apply_A, b, x0, tol) -> CGResult:
-        """The jnp-level CG used by every non-fused solve: single-reduction
+        """The jnp-level CG used by every solve: single-reduction
         variant (one batched geometry reduction per iteration -- one psum
         sharded, vs the reference's two MPI_Allreduce,
         src/conjugate_gradient.cpp:33-44)."""
@@ -452,7 +381,7 @@ class SchwingerModel:
         The condensate's workhorse (observables.chiral_condensate). In
         even-odd mode the solve rides the Schur complement -- the SAME
         half-lattice normal system (Dhat Dhat^+) as the HMC force solves,
-        i.e. the fused Pallas kernel + refinement dispatch:
+        i.e. the same CG + refinement dispatch:
 
             D = [[ m I, -H_eo/2 ], [ -H_oe/2, m I ]],  m = m0 + 2
             Dhat y_e = z_e + (1/2m) H_eo z_o          (Schur solve)
@@ -514,16 +443,6 @@ class SchwingerModel:
             # by the f32 links anyway); psi itself is returned at solve
             # precision so chronological forecasting keeps the f64 guess
             psi_w = self._to_working(psi)
-            if self._use_fused_sharded_force(ops, beta):
-                # lattice-sharded fast path: chi' + fermion force + staple
-                # force as ONE kernel per shard (ops/pallas_halo.py) -- the
-                # sharded MD step is kernels + ppermutes end-to-end
-                from schwingermodel_tpu.ops import pallas_halo
-
-                F = pallas_halo.force_halo_fused(
-                    self.geom, ops.Uf, m0, psi_w, float(beta),
-                    interpret=jax.default_backend() != "tpu")
-                return F, stats.merge(res), psi
             chi_p = ops.dhat_dag(psi_w)
             F = eo.eo_fermion_force(
                 self.fermion_links, self.geom, m0, theta, psi_w, chi_p)
@@ -671,8 +590,6 @@ class SchwingerModel:
         if self._refine_active():
             from schwingermodel_tpu.solvers.refine import to_c128
 
-            # split-real upcast: a direct c64->c128 convert is unsupported
-            # by the TPU x64 rewriter (see solvers/refine.py)
             return self._dot_re(to_c128(phi), res.x), stats.merge(res)
         return self._dot_re(phi, res.x), stats.merge(res)
 

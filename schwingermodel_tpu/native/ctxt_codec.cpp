@@ -13,7 +13,7 @@
 //
 // Exposed as a plain C ABI for ctypes. Returns 0 on success, negative
 // error codes otherwise. This is the framework's "runtime" native piece:
-// config snapshot encode/decode runs on the host while the TPU computes.
+// config snapshot encode/decode runs on the host while the device computes.
 
 #include <cstdint>
 #include <cstdio>

@@ -22,7 +22,7 @@ suppressing the hopping term: the condition number of Dhat Dhat^+ is ~4x
 smaller than D D^+, halving CG iteration counts, and every CG vector op runs
 on half the sites.
 
-Packed layout (TPU-friendly: static shapes, no gathers): an even-parity field
+Packed layout (static shapes, no gathers): an even-parity field
 is stored as E[x, k] = a[x, 2k + off_e(x)] with off_e(x) = x mod 2 (row x's
 even-parity sites sit at t = x mod 2 (mod 2)); odd fields use
 off_o(x) = (x+1) mod 2. Shape (..., Nx, Nt/2). A hop to the neighbor at

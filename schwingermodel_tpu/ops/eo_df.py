@@ -1,7 +1,7 @@
 """Even-odd Wilson operator in double-float (df) arithmetic.
 
-The f64-grade TRUE-residual evaluator for iterative refinement on TPUs
-without usable f64 (solvers/dfloat.py has the full rationale). Mirrors
+The f64-grade TRUE-residual evaluator of the dfloat refinement impl, for
+backends without usable f64 (solvers/dfloat.py has the full rationale). Mirrors
 ops/eo.py term by term -- same packed layout, same gathers, same spin
 structure -- but every complex multiply/add runs in double-single
 arithmetic (~48-bit significands), and the links are evaluated from the
@@ -335,8 +335,8 @@ def gauge_action_df(geom: Geometry, theta, beta: float):
     The plaquette ANGLE is a sum of four f32 angles -- accumulated with
     two_sum chains it is df-exact, and 1 - cos runs through df_sincos, so
     S_g reaches the Metropolis at ~1e-13 absolute instead of f32's ~1e-2
-    at 64x64. Used by the refined Hamiltonian on TPU (the x64 path upcasts
-    to f64 instead, models/schwinger.py gauge_action)."""
+    at 64x64. Used by the refined Hamiltonian under the dfloat impl (the
+    x64 impl upcasts to f64 instead, models/schwinger.py gauge_action)."""
     from schwingermodel_tpu.solvers.dfloat import df_sincos, two_sum
 
     t0 = theta[..., 0, :, :]

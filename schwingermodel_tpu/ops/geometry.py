@@ -1,6 +1,6 @@
 """Lattice geometry: periodic shifts and global reductions.
 
-This is the TPU-native replacement for the reference's entire distributed
+This is the device-mesh replacement for the reference's entire distributed
 runtime (include/mpi_setup.h, the halo buffers TopRow/BottomRow/RightCol/
 LeftCol in src/variables.cpp:71-74, and the ~80% of src/dirac_operator.cpp /
 src/gauge_conf.cpp devoted to interior/edge/corner case splits around blocking
@@ -152,7 +152,7 @@ class ShardedGeometry(Geometry):
         On a chain-ONLY mesh (both lattice axes unsharded) the loop body
         contains no genuine collectives, so groups cannot desynchronize and
         the lockstep psum -- which would be the loop's only cross-group
-        (cross-DCN in the multihost layout) traffic -- is skipped: chains on
+        (cross-host in the multihost layout) traffic -- is skipped: chains on
         different hosts then iterate fully independently."""
         if self.chain_name is None:
             return pred

@@ -1,6 +1,6 @@
-"""Lattice sharding over TPU device meshes.
+"""Lattice sharding over device meshes.
 
-TPU-native replacement for the reference's MPI runtime (include/mpi_setup.h):
+The JAX replacement for the reference's MPI runtime (include/mpi_setup.h):
 the 2D Cartesian rank grid becomes a jax.sharding.Mesh, halo exchange becomes
 lax.ppermute inside shard_map (schwingermodel_tpu.ops.geometry.ShardedGeometry),
 and MPI_Allreduce becomes lax.psum.

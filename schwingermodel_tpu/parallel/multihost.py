@@ -3,14 +3,15 @@
 The reference scales across nodes with one flat MPI world: `mpirun -n N`
 launches N ranks, `MPI_Init` + the 2D Cartesian topology span nodes
 transparently, and every halo message may cross the network
-(include/mpi_setup.h:39-71, src/main.cpp:13-15). The TPU-native equivalent is
+(include/mpi_setup.h:39-71, src/main.cpp:13-15). The JAX equivalent is
 `jax.distributed` + one global `jax.sharding.Mesh` spanning all processes —
-but, unlike MPI, the interconnect is *tiered*: chips within a host/pod-slice
-talk over ICI (fast), hosts talk over DCN (slow). The mesh layout below is
-chosen so that the only traffic that crosses DCN is embarrassingly parallel:
+but, unlike MPI, the interconnect is *tiered*: the GPUs of one host talk over
+NVLink (fast), hosts talk over the network (slow). The mesh layout below is
+chosen so that the only traffic that crosses hosts is embarrassingly
+parallel:
 
   - lattice axes ('x', 't')  -> local devices of each process  [halo ppermutes
-                                 ride ICI only]
+                                 stay inside the host]
   - chain axis ('chain')     -> across processes               [no halo
                                  traffic; only the acceptance-pooling psum of
                                  the autotuner crosses hosts, once per tuning
@@ -58,8 +59,8 @@ def maybe_initialize(
     already running) in distributed mode.
 
     Detection: explicit args win; otherwise standard cluster env vars that
-    jax.distributed.initialize auto-detects (SLURM, Open MPI's OMPI_*,
-    Cloud TPU metadata) or the JAX_COORDINATOR_ADDRESS /
+    jax.distributed.initialize auto-detects (SLURM, Open MPI's OMPI_*) or
+    the JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID triple. A plain single-process run
     returns False and leaves JAX untouched — so every CLI path can call this
     unconditionally (the reference has no such luxury: it must always
@@ -85,8 +86,7 @@ def maybe_initialize(
             return v is not None and int(v) > 1
         except ValueError:
             return False
-    auto = (_multi("SLURM_NTASKS") or _multi("OMPI_COMM_WORLD_SIZE")
-            or "TPU_WORKER_HOSTNAMES" in os.environ)
+    auto = _multi("SLURM_NTASKS") or _multi("OMPI_COMM_WORLD_SIZE")
     if coordinator_address is None and not auto:
         return False
     try:
@@ -117,8 +117,8 @@ def multihost_mesh(
     *,
     chains_per_host_group: int = 1,
 ) -> Mesh:
-    """Global mesh with lattice axes on local (ICI-connected) devices and the
-    chain axis across processes.
+    """Global mesh with lattice axes on local (NVLink-connected) devices and
+    the chain axis across processes.
 
     Shape: ('chain', 'x', 't') = (num_processes * chains_per_host_group,
     rx, rt) where (rx, rt) tiles the lattice over
@@ -134,9 +134,9 @@ def multihost_mesh(
     rx, rt = choose_mesh_shape(per_chain, Nx, Nt)
     rc = jax.process_count() * chains_per_host_group
     # Group devices explicitly by owning process (NOT by relying on
-    # jax.devices() being process-major -- on TPU topologies device ids can
-    # follow physical coordinates): each (rx, rt) lattice plane is built from
-    # a single process's devices, so halo ppermutes never cross DCN.
+    # jax.devices() being process-major): each (rx, rt) lattice plane is
+    # built from a single process's devices, so halo ppermutes never cross
+    # hosts.
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     by_proc = {}
     for d in devs:
@@ -148,7 +148,7 @@ def multihost_mesh(
         owners = {d.process_index for d in dev_grid[c].flat}
         assert len(owners) == 1, (
             f"lattice plane {c} spans processes {owners}; halo traffic "
-            f"would cross DCN")
+            f"would cross hosts")
     return Mesh(dev_grid, (CHAIN_AXIS_NAME, X_AXIS_NAME, T_AXIS_NAME))
 
 

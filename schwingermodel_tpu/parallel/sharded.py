@@ -1,6 +1,6 @@
 """shard_map execution of the HMC trajectory over a 2D device mesh.
 
-This is the TPU-native counterpart of running the reference under
+This is the device-mesh counterpart of running the reference under
 `mpirun -n ranks_x*ranks_t` (run.sh:37): the same trajectory math from
 schwingermodel_tpu.hmc.sampler runs inside `shard_map` with a
 ShardedGeometry, so every shift performs a lax.ppermute halo exchange
@@ -126,62 +126,6 @@ def make_sharded_traj_fn(
 def make_sharded_step(model: SchwingerModel, mesh: Mesh):
     """jit-compiled sharded HMC step: (theta, key) -> (theta', stats)."""
     return jax.jit(make_sharded_traj_fn(model, mesh))
-
-
-def chain_packed_supported(model: SchwingerModel, mesh: Mesh) -> bool:
-    """True when the lane-packed fused trajectory can run inside shard_map
-    over this mesh: a chain-ONLY decomposition (both lattice axes trivial,
-    the multihost default layout) with a packed-capable model."""
-    from schwingermodel_tpu.hmc import packed as hp
-
-    return (
-        _has_chain_axis(mesh)
-        and mesh.shape[X_AXIS_NAME] == 1
-        and mesh.shape[T_AXIS_NAME] == 1
-        and hp.packed_eligible(model)
-    )
-
-
-def make_chain_sharded_packed_traj_fn(model: SchwingerModel, mesh: Mesh,
-                                      ) -> Callable:
-    """The lane-packed fused trajectory (hmc/packed.py) under shard_map
-    over the CHAIN axis of a ('chain', 1, 1) mesh -- the multihost DCN
-    layout (parallel/multihost.py) at full single-chip kernel speed.
-
-    Each device group runs its local chains' trajectories as one fused
-    Pallas program with ZERO collectives inside (chains are embarrassingly
-    parallel; the lattice is unsharded per group). Interface matches
-    make_sharded_traj_fn's chained form: theta [C, 2, Nx, Nt] and keys [C]
-    globally, stats with a leading chain axis.
-    """
-    assert chain_packed_supported(model, mesh)
-    from schwingermodel_tpu.hmc import packed as hp
-
-    field_spec = P(CHAIN_AXIS_NAME, None, None, None)
-    stat_spec = P(CHAIN_AXIS_NAME)
-
-    def local_step(theta_loc, keys_loc, dt):
-        # local chains on this device group: plain (unsharded) geometry --
-        # the model's default Geometry is exactly right inside this body
-        th2, st = hp.hmc_trajectory_packed(
-            model, hp.pack_theta(model, theta_loc), keys_loc, dt=dt)
-        return hp.unpack_theta(model, th2, theta_loc.shape[0]), st
-
-    traj = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(field_spec, stat_spec, P()),
-        out_specs=(field_spec, stat_spec),
-        check_vma=False,
-    )
-
-    sharding = NamedSharding(mesh, field_spec)
-
-    def step(theta: jax.Array, keys: jax.Array, dt=None):
-        theta = jax.lax.with_sharding_constraint(theta, sharding)
-        dt = model.hmc.step_size if dt is None else dt
-        return traj(theta, keys, dt)
-
-    return step
 
 
 def make_sharded_observables(model: SchwingerModel, mesh: Mesh):

@@ -5,7 +5,7 @@ plaquette vs beta on 16x16, HMC against an independent Metropolis code)
 as a first-class driver. The reference has no scan machinery at all -- each
 beta is a separate interactive run of the executable (src/main.cpp:30-58).
 
-TPU-native design: `beta` is a *traced* scalar argument of the compiled
+Design: `beta` is a *traced* scalar argument of the compiled
 trajectory (hmc/sampler.py), so the entire scan reuses ONE executable --
 XLA compiles a single (therm + measure) program and the host loop just feeds
 it different beta values and warm-starts each point from the previous one's

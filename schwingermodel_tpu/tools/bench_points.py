@@ -1,30 +1,33 @@
-"""Operating-point benches beyond the demo config (round-3 verdict item 3).
+"""Operating-point benches beyond the demo config.
 
 The headline bench (bench.py) anchors on the reference demo config --
 64x64, beta=4, m0=0.2, tau=0.1 -- which thermalizes at acceptance ~0.998,
-the easiest point. This tool commits rows at the operating points where
-the solver contracts are actually stressed:
+the easiest point. POINTS below is the cell list where the solver contract
+is actually stressed; it is kept as data for the benchmark definition:
 
   - 128x128 beta=4 m0=0.2 tau=0.1      (the flagship volume, BASELINE
-                                        configs[5]; Nth=64 lane geometry,
-                                        C=8 chains/block)
+                                        configs[5]; C=8 chains)
   - 64x64  beta=4 m0=0.2  tau=1        (physics trajectory length,
                                         acceptance 0.6-0.8 band,
-                                        reference README.md:87-94)
-  - 64x64  beta=2 m0=-0.19 tau=1       (near-critical: m_crit(beta=2) =
-                                        -0.1968(9); CG iteration counts
-                                        blow up, README.md:94)
+                                        reference README.md:87-94), hand-set
+                                        and autotuned
+  - 32x32 / 64x64 beta=2 m0=-0.19 tau=1 with Hasenbusch (near-critical:
+                                        m_crit(beta=2) = -0.1968(9); CG
+                                        iteration counts blow up,
+                                        README.md:94)
 
-Each point runs BOTH solver contracts on the packed fused path and prints
-one JSON row: traj/s/chip, acceptance, CG iters/traj.
+Every point runs the runner's trajectory step -- C vmapped chains of
+sampler.hmc_trajectory -- at the device's precision policy
+(utils/device.py: f32 + 1e-10 x64 refinement on a GPU) and prints one JSON
+row: traj/s, acceptance, CG iters/traj, all solves converged, and the
+device it ran on. Without a GPU the tool exits non-zero.
 
-    python -m schwingermodel_tpu.tools.bench_points [--json BENCH_POINTS.json]
+    python -m schwingermodel_tpu.tools.bench_points [--json OUT.json]
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import time
 
@@ -40,28 +43,126 @@ POINTS = [
     ("64x64_b4_tau1", 64, 64, 4.0, 0.2, 40, 1.0, 32, 40,
      "leapfrog", 10000, {}),
     # the same point with the dual-averaging autotuner choosing the step
-    # (hmc/autotune.py; target 0.7 = mid reference band README.md:87-94):
-    # the committed evidence that the tuner picks a better operating
-    # point than the hand-set md=40 row above (round-4 verdict item 4)
+    # (hmc/autotune.py; target 0.7 = mid reference band README.md:87-94)
     ("64x64_b4_tau1_tuned", 64, 64, 4.0, 0.2, 40, 1.0, 32, 40,
      "leapfrog", 10000, {"tune": True}),
-    # MRE forecasting A/B at the rough-trajectory point (round-4 verdict
-    # item 7): K=4 in-kernel chronological inversion vs the default
-    # 2nd-order extrapolation, refined contract (the knob's only scope)
-    ("64x64_b4_tau1_mre4", 64, 64, 4.0, 0.2, 40, 1.0, 32, 40,
-     "leapfrog", 10000, {"mre_history": 4, "refined_only": True}),
-    # near-critical AT m_crit(beta=2) = -0.1968(9): the lowest Dirac
-    # eigenvalue scales ~1/V; single-pseudofermion HMC acceptance
-    # collapses with volume here (the reference's own 32x32 golden runs
-    # at acceptance 0.002, tests/golden/refphys.json). These rows run the
-    # production cure -- Hasenbusch mass preconditioning (two
-    # pseudofermions, config.HMCParams.hasenbusch_dm) on the packed fused
-    # path -- at 32x32 AND the 64x64 volume the reference cannot reach.
+    # near-critical at m_crit(beta=2) = -0.1968(9): single-pseudofermion
+    # HMC acceptance collapses with volume here (the reference's own 32x32
+    # golden runs at acceptance 0.002, tests/golden/refphys.json); these
+    # rows run Hasenbusch mass preconditioning (two pseudofermions,
+    # config.HMCParams.hasenbusch_dm).
     ("32x32_b2_m-0.19_tau1_hb", 32, 32, 2.0, -0.19, 26, 1.0, 32, 40,
      "leapfrog", 20000, {"hasenbusch_dm": 0.4}),
     ("64x64_b2_m-0.19_tau1_hb", 64, 64, 2.0, -0.19, 36, 1.0, 16, 30,
      "leapfrog", 20000, {"hasenbusch_dm": 0.4}),
 ]
+
+
+def make_block(model, C):
+    """n trajectories of C vmapped chains (the runner's step,
+    runner._traj_fn + jax.vmap) as one device program; returns the
+    summed acceptance, CG iterations and converged flags."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from schwingermodel_tpu.hmc import sampler
+    from schwingermodel_tpu.utils import prng
+
+    traj = jax.vmap(functools.partial(sampler.hmc_trajectory, model))
+
+    @functools.partial(jax.jit, static_argnames=("n",))
+    def block(th, k0, n):
+        def body(carry, i):
+            keys = jax.random.split(prng.trajectory_key(k0, i), C)
+            th, st = traj(carry, keys)
+            return th, (jnp.sum(st.accepted), jnp.sum(st.cg_iters),
+                        jnp.sum(st.cg_converged))
+        th, (acc, it, cv) = jax.lax.scan(body, th, jnp.arange(n))
+        return th, jnp.sum(acc), jnp.sum(it), jnp.sum(cv)
+
+    return block
+
+
+def run_cell(model, C, n_therm, n_timed, seed=0, anneal=(), tune=False,
+             chunk=20):
+    """Throughput of one cell on the vmapped sampler.
+
+    anneal: intermediate m0 values to thermalize through before the target
+    mass -- near m_crit a hot start sits on exceptional configurations that
+    reject forever. tune: run the dual-averaging step-size warmup after
+    thermalization and time at the tuned md_steps. Programs are chunked to
+    `chunk` trajectories with a host fence each. Returns
+    (traj/s, acceptance, CG iters/traj, all converged, tune info)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from schwingermodel_tpu.utils import prng
+
+    Nx, Nt = model.lattice.Nx, model.lattice.Nt
+    key = prng.root_key(seed)
+    th = jax.random.uniform(
+        jax.random.fold_in(key, 7), (C, 2, Nx, Nt),
+        minval=-jnp.pi, maxval=jnp.pi, dtype=model.lattice.rdtype)
+
+    def run_chunks(block, th, k0, n):
+        acc = iters = conv = 0.0
+        done = 0
+        while done < n:
+            m = min(chunk, n - done)
+            th, a, it, cv = block(th, jax.random.fold_in(k0, done), m)
+            acc += float(a); iters += float(it); conv += float(cv)
+            done += m
+        return th, acc, iters, conv
+
+    for k, m0_a in enumerate(anneal):
+        m_a = dataclasses.replace(
+            model, hmc=dataclasses.replace(model.hmc, m0=m0_a))
+        th, *_ = run_chunks(make_block(m_a, C), th,
+                            jax.random.fold_in(key, 500 + k), n_therm)
+
+    block = make_block(model, C)
+    th, *_ = run_chunks(block, th, key, n_therm)
+
+    tune_info = {}
+    if tune:
+        from schwingermodel_tpu.hmc import autotune as at
+
+        th, hmc_tuned, eps = at.autotune(
+            model, th, jax.random.fold_in(key, 0x7E0E), n_tune=150,
+            target=0.7)
+        tune_info = {"tuned": True, "tuned_eps": float(eps),
+                     "md_steps_tuned": int(hmc_tuned.md_steps)}
+        model = dataclasses.replace(model, hmc=hmc_tuned)
+        block = make_block(model, C)
+        # short re-thermalization at the tuned step
+        th, *_ = run_chunks(block, th, jax.random.fold_in(key, 3),
+                            min(40, n_therm))
+
+    run_chunks(block, th, jax.random.fold_in(key, 1), n_timed)  # compile
+    t0 = time.perf_counter()
+    _, acc, iters, conv = run_chunks(block, th, jax.random.fold_in(key, 2),
+                                     n_timed)
+    dt = time.perf_counter() - t0
+    n = n_timed * C
+    return n / dt, acc / n, iters / n, conv == n, tune_info
+
+
+def policy_model(Nx, Nt, policy, **hmc_kw):
+    """SchwingerModel at the device's precision policy; CG max_iter from
+    hmc_kw['max_iter'] (default 10000)."""
+    from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
+    from schwingermodel_tpu.models.schwinger import SchwingerModel
+
+    max_iter = hmc_kw.pop("max_iter", 10000)
+    cg = CGParams(tol=1e-10, max_iter=max_iter, refine=policy.refine,
+                  refine_impl=policy.refine_impl)
+    return SchwingerModel(
+        lattice=LatticeParams(Nx=Nx, Nt=Nt, real_dtype=policy.real_dtype),
+        hmc=HMCParams(even_odd=True, cg=cg, **hmc_kw))
 
 
 def main(argv=None) -> int:
@@ -74,164 +175,43 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import jax
-    import jax.numpy as jnp
 
     from schwingermodel_tpu.utils.cache import enable_compilation_cache
+    from schwingermodel_tpu.utils.device import device_policy, require_gpu
 
     enable_compilation_cache()
-
-    from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
-    from schwingermodel_tpu.hmc import packed as hp
-    from schwingermodel_tpu.models.schwinger import SchwingerModel
-    from schwingermodel_tpu.utils import prng
+    device = require_gpu()
+    policy = device_policy()
+    if policy.needs_x64:
+        jax.config.update("jax_enable_x64", True)
 
     rows = []
-
-    def run_packed(model, C, Nx, Nt, n_therm, n_timed, seed=0,
-                   anneal=(), tune=False):
-        """anneal: sequence of intermediate m0 values to thermalize
-        through before the target mass -- near m_crit a hot start sits on
-        exceptional (near-singular-D) configurations that reject forever;
-        annealing from a safe mass reaches the target distribution the
-        way production near-critical runs do. tune: run the dual-averaging
-        step-size warmup after thermalization and time at the tuned
-        md_steps (the committed autotuner evidence)."""
-        import dataclasses
-
-        key = prng.root_key(seed)
-        thetas = jax.random.uniform(
-            jax.random.fold_in(key, 7), (C, 2, Nx, Nt),
-            minval=-jnp.pi, maxval=jnp.pi, dtype=jnp.float32)
-        th = hp.pack_theta(model, thetas)
-
-        def make_run(model):
-            @functools.partial(jax.jit, static_argnames=("n",))
-            def run(th, k0, n):
-                def body(carry, i):
-                    th = carry
-                    keys = jax.vmap(lambda c: jax.random.fold_in(
-                        prng.trajectory_key(k0, i), c))(jnp.arange(C))
-                    th, st = hp.hmc_trajectory_packed(model, th, keys)
-                    return th, (jnp.sum(st.accepted), jnp.sum(st.cg_iters),
-                                jnp.sum(st.cg_converged))
-                th, (acc, it, cv) = jax.lax.scan(body, th, jnp.arange(n))
-                return th, jnp.sum(acc), jnp.sum(it), jnp.sum(cv)
-            return run
-
-        run = make_run(model)
-
-        # chunked host fences: near-critical iteration counts make a
-        # 100-trajectory device program minutes long, which can trip the
-        # TPU worker watchdog (observed worker crash) -- bound each
-        # program to `chunk` trajectories
-        chunk = 20
-
-        def run_chunks(th, k0, n, fence=True):
-            acc = iters = conv = 0.0
-            done = 0
-            while done < n:
-                m = min(chunk, n - done)
-                th, a, it, cv = run(th, jax.random.fold_in(k0, done), m)
-                if fence:
-                    acc += float(a); iters += float(it); conv += float(cv)
-                done += m
-            return th, acc, iters, conv
-
-        for k, m0_a in enumerate(anneal):
-            m_a = dataclasses.replace(
-                model, hmc=dataclasses.replace(model.hmc, m0=m0_a))
-
-            @functools.partial(jax.jit, static_argnames=("n",))
-            def run_a(th, k0, n, m_a=m_a):
-                def body(carry, i):
-                    th = carry
-                    keys = jax.vmap(lambda c: jax.random.fold_in(
-                        prng.trajectory_key(k0, i), c))(jnp.arange(C))
-                    th, st = hp.hmc_trajectory_packed(m_a, th, keys)
-                    return th, jnp.sum(st.accepted)
-                th, acc = jax.lax.scan(body, th, jnp.arange(n))
-                return th, jnp.sum(acc)
-
-            done = 0
-            while done < n_therm:
-                m = min(chunk, n_therm - done)
-                th, a_ = run_a(th, jax.random.fold_in(key, 500 + k), m)
-                float(a_)
-                done += m
-
-        th, *_ = run_chunks(th, key, n_therm)
-
-        tune_info = {}
-        if tune:
-            from schwingermodel_tpu.hmc import autotune as at
-            from schwingermodel_tpu.runner import _packed_traj_adapter
-
-            thetas_full = hp.unpack_theta(model, th, C)
-            s = _packed_traj_adapter(model)
-            thetas_full, hmc_tuned, eps = at.autotune(
-                model, thetas_full, jax.random.fold_in(key, 0x7E0E),
-                n_tune=150, target=0.7,
-                traj_fn=lambda t, k, dt_: s(t, k, dt=dt_),
-                traj_handles_chains=True)
-            tune_info = {"tuned": True, "tuned_eps": round(float(eps), 6),
-                         "md_steps_tuned": int(hmc_tuned.md_steps)}
-            model = dataclasses.replace(model, hmc=hmc_tuned)
-            th = hp.pack_theta(model, thetas_full)
-            run = make_run(model)
-            # short re-thermalization at the tuned step
-            th, *_ = run_chunks(th, jax.random.fold_in(key, 3),
-                                min(40, n_therm))
-
-        th2, *_ = run_chunks(th, jax.random.fold_in(key, 1), n_timed)
-        t0 = time.perf_counter()
-        th2, acc, iters, conv = run_chunks(
-            th, jax.random.fold_in(key, 2), n_timed)
-        dt = time.perf_counter() - t0
-        return (n_timed * C / dt, acc / (n_timed * C), iters / (n_timed * C),
-                conv == n_timed * C, tune_info)
-
     for (name, Nx, Nt, beta, m0, md, tau, C, n_timed, integ,
          max_it, extras) in POINTS:
         if args.only and args.only not in name:
             continue
-        lat = LatticeParams(Nx=Nx, Nt=Nt, real_dtype="float32")
         hb_dm = extras.get("hasenbusch_dm")
-        tune = bool(extras.get("tune"))
-        mre = int(extras.get("mre_history", 0))
-        base = dict(beta=beta, m0=m0, md_steps=md, trajectory_length=tau,
-                    even_odd=True, integrator=integ, hasenbusch_dm=hb_dm,
-                    mre_history=mre)
-        contracts = [
-            ("loose_f32_tol1e-6",
-             CGParams(tol=1e-6, max_iter=max_it)),
-            ("refined_1e-10_dfloat",
-             CGParams(tol=1e-10, max_iter=max_it, refine=True)),
-        ]
-        if extras.get("refined_only"):
-            contracts = contracts[1:]
-        for contract, cg in contracts:
-            model = SchwingerModel(
-                lattice=lat, hmc=HMCParams(**base, cg=cg))
-            anneal = (0.0, (0.0 + m0) / 2) if m0 < 0 else ()
-            v, acc, iters, conv, tune_info = run_packed(
-                model, C, Nx, Nt, args.n_therm, n_timed, anneal=anneal,
-                tune=tune)
-            row = {"metric": f"hmc_traj_per_s_{name}",
-                   "value": round(v, 3), "unit": "traj/s/chip",
-                   "contract": contract, "lattice": f"{Nx}x{Nt}",
-                   "beta": beta, "m0": m0, "md_steps": md, "tau": tau,
-                   "integrator": integ,
-                   "chains": C, "acceptance": round(acc, 3),
-                   "cg_iters_per_traj": round(iters, 1),
-                   "all_converged": bool(conv),
-                   "backend": jax.default_backend()}
-            if hb_dm is not None:
-                row["hasenbusch_dm"] = hb_dm
-            if mre:
-                row["mre_history"] = mre
-            row.update(tune_info)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+        model = policy_model(
+            Nx, Nt, policy, beta=beta, m0=m0, md_steps=md,
+            trajectory_length=tau, integrator=integ, hasenbusch_dm=hb_dm,
+            max_iter=max_it)
+        anneal = (0.0, m0 / 2) if m0 < 0 else ()
+        v, acc, iters, conv, tune_info = run_cell(
+            model, C, args.n_therm, n_timed, anneal=anneal,
+            tune=bool(extras.get("tune")))
+        row = {"metric": f"hmc_traj_per_s_{name}", "value": v,
+               "unit": "traj/s",
+               "contract": f"1e-10 ({policy.real_dtype}"
+                           f"{' + x64 refinement' if policy.refine else ''})",
+               "lattice": f"{Nx}x{Nt}", "beta": beta, "m0": m0,
+               "md_steps": md, "tau": tau, "integrator": integ,
+               "chains": C, "acceptance": acc, "cg_iters_per_traj": iters,
+               "all_converged": bool(conv), **device}
+        if hb_dm is not None:
+            row["hasenbusch_dm"] = hb_dm
+        row.update(tune_info)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
 
     if args.json:
         with open(args.json, "w") as f:

@@ -5,13 +5,14 @@ list of mesh shapes (1x1 = single device baseline, then rx x rt lattice
 domain decompositions and optional rc x rx x rt chain meshes), printing one
 JSON line per mesh with the ratio to the single-device number.
 
-On CI this runs against N virtual CPU devices
-(--platform cpu --devices 8), which cannot measure real ICI bandwidth but
-does measure the full SPMD overhead stack the TPU path will see: ppermute
-halo exchanges per Dirac hop, psum'd CG dots with cross-shard sync, and the
-lockstep CG termination (solvers/cg.py sync_pred). On a real pod slice the
-same tool reports ICI-attached scaling (BASELINE.md's >= 80% 1->N hosts
-north star; the reference's analog is its ranks_x x ranks_t MPI grid,
+Every mesh runs the sampler's trajectory (plain vmapped/sharded jnp path)
+at the device's precision policy (utils/device.py). Against N virtual CPU
+devices (--platform cpu --devices 8) it cannot measure a real interconnect
+but does count the full SPMD overhead stack: ppermute halo exchanges per
+Dirac hop, psum'd CG dots with cross-shard sync, and the lockstep CG
+termination (solvers/cg.py sync_pred); its times are CPU times, never
+device numbers. On a host of GPUs the same tool reports NVLink-attached
+scaling (the reference's analog is its ranks_x x ranks_t MPI grid,
 include/mpi_setup.h:39-71).
 
     python -m schwingermodel_tpu.tools.bench_scaling \
@@ -45,8 +46,6 @@ def main(argv=None) -> int:
     p.add_argument("--m0", type=float, default=0.2)
     p.add_argument("--md-steps", type=int, default=10)
     p.add_argument("--tau", type=float, default=0.1)
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
-    p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--meshes", default="1x1,1x2,2x2,1x4")
     p.add_argument("--n-therm", type=int, default=30)
     p.add_argument("--n-timed", type=int, default=30)
@@ -65,8 +64,8 @@ def main(argv=None) -> int:
                    help="write the chain-scaling result table here")
     p.add_argument("--chain-worker", action="store_true",
                    help="run the chain-mesh measurement in THIS process "
-                        "(multi-process launch auto-detected, e.g. Cloud "
-                        "TPU metadata; see examples/pod_chain_scaling.sh)")
+                        "(multi-process launch auto-detected from SLURM / "
+                        "Open MPI or the JAX_COORDINATOR_ADDRESS variables)")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -87,9 +86,7 @@ def main(argv=None) -> int:
 
     import jax.numpy as jnp
 
-    from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
     from schwingermodel_tpu.hmc.sampler import hmc_trajectory
-    from schwingermodel_tpu.models.schwinger import SchwingerModel
     from schwingermodel_tpu.parallel.mesh import lattice_mesh
     from schwingermodel_tpu.parallel.sharded import (
         make_sharded_traj_fn, theta_sharding,
@@ -99,11 +96,8 @@ def main(argv=None) -> int:
 
     enable_compilation_cache()
 
-    lat = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype=args.dtype)
-    hmc = HMCParams(beta=args.beta, m0=args.m0, md_steps=args.md_steps,
-                    trajectory_length=args.tau, even_odd=True,
-                    cg=CGParams(tol=args.tol, max_iter=2000))
-    model = SchwingerModel(lattice=lat, hmc=hmc)
+    model = _policy_model(args)
+    lat = model.lattice
     key = prng.root_key(0)
 
     def block_fn(traj_fn, n, n_chains=1):
@@ -164,8 +158,9 @@ def main(argv=None) -> int:
             "metric": "hmc_traj_per_s",
             "mesh": "x".join(map(str, mesh_shape)),
             "lattice": f"{args.nx}x{args.nt}",
-            "dtype": args.dtype,
-            "backend": jax.default_backend(),
+            "dtype": lat.real_dtype,
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "value": round(tps, 3),
             "unit": "traj/s",
             "cg_iters": iters,
@@ -174,22 +169,34 @@ def main(argv=None) -> int:
     return 0
 
 
+def _policy_model(args):
+    """The benchmark model at this device's precision policy
+    (utils/device.py); enables x64 where the policy needs it."""
+    import jax
+
+    from schwingermodel_tpu.tools.bench_points import policy_model
+    from schwingermodel_tpu.utils.device import device_policy
+
+    policy = device_policy()
+    if policy.needs_x64:
+        jax.config.update("jax_enable_x64", True)
+    return policy_model(args.nx, args.nt, policy, beta=args.beta,
+                        m0=args.m0, md_steps=args.md_steps,
+                        trajectory_length=args.tau, max_iter=2000)
+
+
 def _chain_scaling_worker(args) -> int:
     """One process of a jax.distributed chain-mesh run: measures GLOBAL
     traj/s over the ('chain','x','t') multihost mesh (chain axis across
-    processes -- parallel/multihost.py's DCN layout) and prints one JSON
-    line from process 0."""
+    processes -- parallel/multihost.py's cross-host layout) and prints one
+    JSON line from process 0."""
     import time as _time
 
     import jax
     import jax.numpy as jnp
 
-    from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
-    from schwingermodel_tpu.models.schwinger import SchwingerModel
     from schwingermodel_tpu.parallel import multihost
     from schwingermodel_tpu.parallel.sharded import (
-        chain_packed_supported,
-        make_chain_sharded_packed_traj_fn,
         make_sharded_traj_fn,
         theta_sharding,
     )
@@ -200,11 +207,8 @@ def _chain_scaling_worker(args) -> int:
     multihost.maybe_initialize(args.coordinator, args.num_processes,
                                args.process_id)
 
-    lat = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype=args.dtype)
-    hmc = HMCParams(beta=args.beta, m0=args.m0, md_steps=args.md_steps,
-                    trajectory_length=args.tau, even_odd=True,
-                    cg=CGParams(tol=args.tol, max_iter=2000))
-    model = SchwingerModel(lattice=lat, hmc=hmc)
+    model = _policy_model(args)
+    lat = model.lattice
     mesh = multihost.multihost_mesh(args.nx, args.nt)
     rc = mesh.shape["chain"]
     C = rc * args.chains_per_slot
@@ -214,10 +218,7 @@ def _chain_scaling_worker(args) -> int:
                                minval=-jnp.pi, maxval=jnp.pi,
                                dtype=lat.rdtype)
     theta = jax.device_put(theta, theta_sharding(mesh))
-    if chain_packed_supported(model, mesh):
-        traj = make_chain_sharded_packed_traj_fn(model, mesh)
-    else:
-        traj = make_sharded_traj_fn(model, mesh)
+    traj = make_sharded_traj_fn(model, mesh)
 
     @jax.jit
     def block(th, k0, idx):
@@ -256,9 +257,9 @@ def _chain_scaling_parent(args) -> int:
     """Spawn each process count as REAL OS processes (localhost
     jax.distributed coordinator, CPU backend) and report the chain-axis
     scaling efficiency: eff(P) = rate(P) / (P * rate(1)). This is the
-    2-process CPU proxy for the >= 80% 1->N host north star
-    (BASELINE.md:25); the identical tool invocation on a pod slice (see
-    examples/pod_chain_scaling.sh) measures the real DCN number."""
+    2-process CPU proxy for multi-host chain scaling; the same workers
+    launched one per host (with --coordinator) measure the real
+    network number."""
     import os
     import socket
     import subprocess
@@ -283,7 +284,6 @@ def _chain_scaling_parent(args) -> int:
                 "--nx", str(args.nx), "--nt", str(args.nt),
                 "--beta", str(args.beta), "--m0", str(args.m0),
                 "--md-steps", str(args.md_steps), "--tau", str(args.tau),
-                "--dtype", args.dtype, "--tol", str(args.tol),
                 "--n-therm", str(args.n_therm),
                 "--n-timed", str(args.n_timed),
                 "--chains-per-slot", str(args.chains_per_slot),

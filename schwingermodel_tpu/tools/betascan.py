@@ -63,9 +63,10 @@ def main(argv=None) -> int:
 
     enable_compilation_cache()
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = args.dtype or ("float32" if on_tpu else "float64")
-    if dtype == "float64" and not on_tpu:
+    from schwingermodel_tpu.utils.device import device_policy
+
+    dtype = args.dtype or device_policy().real_dtype
+    if dtype == "float64":
         jax.config.update("jax_enable_x64", True)
 
     from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams

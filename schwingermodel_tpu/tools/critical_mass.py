@@ -8,9 +8,9 @@ mass m_PCAC = d_t C_{A0 P} / (2 C_PP) from point-source correlators
 linearly extrapolate m_PCAC(m0) -> 0. Wilson fermions: m_PCAC vanishes at
 m0 = m_crit, linearly up to O(a) artifacts.
 
-HMC runs on the lane-packed fused path (C chains in lockstep, the shipped
-f32 + 1e-10 refinement contract); the correlator solves ride the same
-precision dispatch via dirac_inverse.
+HMC runs C vmapped chains of the sampler at the device's precision policy
+(utils/device.py: f32 + 1e-10 x64 refinement on a GPU, f64 on the CPU); the
+correlator solves ride the same precision dispatch via dirac_inverse.
 
     python -m schwingermodel_tpu.tools.critical_mass \
         --beta 2 --nx 16 --nt 16 \
@@ -112,72 +112,49 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
 
     from schwingermodel_tpu.utils.cache import enable_compilation_cache
+    from schwingermodel_tpu.utils.device import device_policy
 
     enable_compilation_cache()
+    policy = device_policy()
+    if policy.needs_x64:
+        jax.config.update("jax_enable_x64", True)
 
     from schwingermodel_tpu import observables as obs
-    from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
-    from schwingermodel_tpu.hmc import packed as hp
-    from schwingermodel_tpu.models.schwinger import SchwingerModel
+    from schwingermodel_tpu.hmc.sampler import hmc_trajectory
+    from schwingermodel_tpu.tools.bench_points import policy_model
     from schwingermodel_tpu.utils import prng
 
     Nx, Nt, C = args.nx, args.nt, args.chains
-    on_tpu = jax.default_backend() == "tpu"
-    lat = LatticeParams(
-        Nx=Nx, Nt=Nt, real_dtype="float32" if on_tpu else "float64")
+
+    def make_block(model):
+        """n vmapped trajectories of all C chains as one device program."""
+        @functools.partial(jax.jit, static_argnames=("n",))
+        def block(th, k0, n):
+            def body(carry, i):
+                th = carry
+                keys = jax.vmap(lambda c: jax.random.fold_in(
+                    prng.trajectory_key(k0, i), c))(jnp.arange(C))
+                th, st = jax.vmap(
+                    lambda t, k: hmc_trajectory(model, t, k))(th, keys)
+                return th, jnp.sum(st.accepted)
+            th, acc = jax.lax.scan(body, th, jnp.arange(n))
+            return th, jnp.sum(acc)
+        return block
 
     def run_point(m0: float):
-        cg = CGParams(tol=1e-10, max_iter=20000, refine=on_tpu)
-        model = SchwingerModel(lattice=lat, hmc=HMCParams(
-            beta=args.beta, m0=m0, md_steps=args.md_steps,
-            trajectory_length=args.tau, even_odd=True, cg=cg))
+        model = policy_model(Nx, Nt, policy, beta=args.beta, m0=m0,
+                             md_steps=args.md_steps,
+                             trajectory_length=args.tau, max_iter=20000)
         import dataclasses
 
         key = prng.root_key(args.seed)
-        thetas = jax.random.uniform(
+        th = jax.random.uniform(
             jax.random.fold_in(key, 11), (C, 2, Nx, Nt),
-            minval=-jnp.pi, maxval=jnp.pi, dtype=lat.rdtype)
-
-        if hp.packed_eligible(model):
-            th = hp.pack_theta(model, thetas)
-
-            @functools.partial(jax.jit, static_argnames=("n",))
-            def block(th, k0, n):
-                def body(carry, i):
-                    th = carry
-                    keys = jax.vmap(lambda c: jax.random.fold_in(
-                        prng.trajectory_key(k0, i), c))(jnp.arange(C))
-                    th, st = hp.hmc_trajectory_packed(model, th, keys)
-                    return th, jnp.sum(st.accepted)
-                th, acc = jax.lax.scan(body, th, jnp.arange(n))
-                return th, jnp.sum(acc)
-
-            def unpack(th):
-                return hp.unpack_theta(model, th, C)
-        else:
-            from schwingermodel_tpu.hmc.sampler import hmc_trajectory
-
-            th = thetas
-
-            @functools.partial(jax.jit, static_argnames=("n",))
-            def block(th, k0, n):
-                def body(carry, i):
-                    th = carry
-                    keys = jax.vmap(lambda c: jax.random.fold_in(
-                        prng.trajectory_key(k0, i), c))(jnp.arange(C))
-                    th, st = jax.vmap(
-                        lambda t, k: hmc_trajectory(model, t, k))(th, keys)
-                    return th, jnp.sum(st.accepted)
-                th, acc = jax.lax.scan(body, th, jnp.arange(n))
-                return th, jnp.sum(acc)
-
-            def unpack(th):
-                return th
+            minval=-jnp.pi, maxval=jnp.pi, dtype=model.lattice.rdtype)
+        block = make_block(model)
 
         @jax.jit
-        def measure(th):
-            thetas = unpack(th)
-
+        def measure(thetas):
             def one(t):
                 r = obs.meson_correlators(model, t)
                 return r.C_PP, r.C_A0P, r.solves.all_converged
@@ -187,24 +164,12 @@ def main(argv=None) -> int:
 
         # anneal the thermalization through a safe mass (hot starts near
         # m_crit otherwise stick on exceptional configurations)
-        if m0 < -0.05 and hp.packed_eligible(model):
+        if m0 < -0.05:
             for k, m0_a in enumerate((0.0, m0 / 2)):
                 m_a = dataclasses.replace(
                     model, hmc=dataclasses.replace(model.hmc, m0=m0_a))
-
-                @functools.partial(jax.jit, static_argnames=("n",))
-                def block_a(th, k0, n, m_a=m_a):
-                    def body(carry, i):
-                        th = carry
-                        keys = jax.vmap(lambda c: jax.random.fold_in(
-                            prng.trajectory_key(k0, i), c))(jnp.arange(C))
-                        th, st = hp.hmc_trajectory_packed(m_a, th, keys)
-                        return th, jnp.sum(st.accepted)
-                    th, a = jax.lax.scan(body, th, jnp.arange(n))
-                    return th, jnp.sum(a)
-
-                th, a_ = block_a(th, jax.random.fold_in(key, 700 + k),
-                                 args.n_therm // 2)
+                th, a_ = make_block(m_a)(
+                    th, jax.random.fold_in(key, 700 + k), args.n_therm // 2)
                 float(a_)
         th, acc = block(th, key, args.n_therm)
         acc_count = float(acc)
@@ -268,8 +233,9 @@ def main(argv=None) -> int:
         with open(args.markdown, "w") as f:
             f.write(f"# Critical mass at beta = {args.beta:g}\n\n")
             f.write(
-                f"PCAC quark-mass scan on {Nx}x{Nt} (f32 + 1e-10 dfloat "
-                f"refinement, packed fused path, {C} chains; "
+                f"PCAC quark-mass scan on {Nx}x{Nt} ({policy.real_dtype}"
+                f"{' + 1e-10 x64 refinement' if policy.refine else ''}, "
+                f"{C} vmapped chains; "
                 f"md_steps={args.md_steps}, tau={args.tau:g}).\n\n"
                 "| m0 | m_PCAC | err | acceptance |\n|---|---|---|---|\n")
             for r in rows:

@@ -7,7 +7,7 @@ acceptance rate for 8x8 and 16x16 at beta = 1..6, m0 = 0.2, plus the
 near-critical point beta=2, m0=-0.19 (reference README.md:100-111 critical
 mass table; validation approach of HMC_doc.pdf Fig. 1).
 
-This tool re-runs every point through the TPU framework with identical MD
+This tool re-runs every point through this framework with identical MD
 parameters and gates the plaquette at 2 sigma (combined jackknife errors)
 and the acceptance rate at 2 sigma (binomial). Because different RNGs mean
 observables match only in distribution (SURVEY.md section 7 hard part 4),
@@ -171,15 +171,14 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax
 
-    on_tpu = jax.default_backend() not in ("cpu",)
+    from schwingermodel_tpu.utils.device import device_policy
+
     if args.dtype is None:
-        args.dtype = "float32" if on_tpu else "float64"
+        args.dtype = device_policy().real_dtype
     if args.refine is None:
         args.refine = args.dtype == "float32"
-    # x64 only where the refinement impl needs it: the dfloat impl (TPU)
-    # runs entirely in f32 pairs, and x64 programs cannot execute on this
-    # TPU backend (solvers/dfloat.py rationale)
-    if args.dtype == "float64" or (args.refine and not on_tpu):
+    # float64 fields and the x64 refinement impl both need x64
+    if args.dtype == "float64" or args.refine:
         jax.config.update("jax_enable_x64", True)
 
     from schwingermodel_tpu.utils.cache import enable_compilation_cache
@@ -221,7 +220,7 @@ def main(argv=None) -> int:
     rows = []
     ok = True
     hdr = (f"{'lattice':>8} {'beta':>5} {'m0':>6} | {'Ep(ref)':>10} "
-           f"{'Ep(tpu)':>10} {'nsig':>5} | {'acc(ref)':>8} {'acc(tpu)':>8} "
+           f"{'Ep(jax)':>10} {'nsig':>5} | {'acc(ref)':>8} {'acc(jax)':>8} "
            f"{'nsig':>5} | verdict")
     print(hdr)
     print("-" * len(hdr))

@@ -123,3 +123,39 @@ def plaquette_ref(U):
                 U[0, x, t] * U[1, x, tp] * np.conj(U[0, xp, t]) * np.conj(U[1, x, t])
             )
     return out
+
+
+def links_ref(theta):
+    """U = exp(i theta) in complex128 from (possibly f32) angles."""
+    return np.exp(1j * np.asarray(theta, dtype=np.float64))
+
+
+def even_sites(Nx, Nt):
+    """Boolean (Nx, Nt) mask of the even sites, (x + t) even."""
+    x, t = np.meshgrid(np.arange(Nx), np.arange(Nt), indexing="ij")
+    return (x + t) % 2 == 0
+
+
+def schur_ref(U, w, m0, dagger=False):
+    """Dhat w (or Dhat^+ w) for a full-lattice spinor w supported on the
+    even sites, from the full Wilson operator in (even, odd) blocks:
+    D = [[m, -H_eo/2], [-H_oe/2, m]], m = m0 + 2, so the odd part of
+    D w_e is -H_oe w_e / 2, the even part of D u_o is -H_eo u_o / 2, and
+    Dhat = m - H_eo H_oe / (4m). Returns a field supported on even sites."""
+    apply = dirac_dagger_ref if dagger else dirac_ref
+    even = even_sites(*w.shape[1:])
+    m = m0 + 2.0
+    w = np.where(even, w, 0)
+    u = np.where(even, 0, apply(U, w, m0))
+    s = np.where(even, apply(U, u, m0), 0)
+    return m * w - s / m
+
+
+def schur_normal_ref(U, w, m0):
+    """(Dhat Dhat^+) w on the even sites (see schur_ref)."""
+    return schur_ref(U, schur_ref(U, w, m0, dagger=True), m0)
+
+
+def normal_ref(U, w, m0):
+    """(D D^+) w on the full lattice."""
+    return dirac_ref(U, dirac_dagger_ref(U, w, m0), m0)

@@ -5,9 +5,8 @@ The exact HMC identity <exp(-dH)> = 1 (over refreshed momenta/pseudofermions
 from a thermalized ensemble) is the sharpest end-to-end detector of any
 detailed-balance violation: solver-tolerance bias, forecasting
 history-dependence, precision loss in dH. It is asserted here AT THE SHIPPED
-TPU OPERATING POINTS: f32 + cg_forecast + mixed-precision refinement (the
-default), f32 + loose 1e-6 solves (the --no-cg-refine fast mode), and the
-fused Pallas kernel path (interpret mode on CPU).
+GPU OPERATING POINTS: f32 + cg_forecast + mixed-precision refinement (the
+default), and f32 + loose 1e-6 solves (the --no-cg-refine fast mode).
 
 The O(dt^2) leapfrog order and full-D (non-even-odd) reversibility round out
 the integrator gates the reference validates only by hand.
@@ -26,13 +25,13 @@ from schwingermodel_tpu.utils import prng
 from tests.conftest import random_theta
 
 
-def _model(dtype, *, refine, tol, md_steps=8, fused=None, even_odd=True,
+def _model(dtype, *, refine, tol, md_steps=8, even_odd=True,
            forecast=True, tau=1.0):
     return SchwingerModel(
         lattice=LatticeParams(Nx=8, Nt=8, real_dtype=dtype),
         hmc=HMCParams(beta=2.0, m0=0.1, md_steps=md_steps,
                       trajectory_length=tau, even_odd=even_odd,
-                      cg_forecast=forecast, fused_cg=fused,
+                      cg_forecast=forecast,
                       cg=CGParams(tol=tol, max_iter=10000, refine=refine)),
     )
 
@@ -66,7 +65,7 @@ def _assert_expmdh_unity(st, n_sigma=4.0, floor=5e-3):
 
 @pytest.mark.slow
 def test_expmdh_unity_f32_refined_forecast():
-    """Shipped TPU default: f32 + refinement to 1e-10 + forecasting."""
+    """Shipped GPU default: f32 + refinement to 1e-10 + forecasting."""
     model = _model("float32", refine=True, tol=1e-10)
     _, st = _run_chain(model, 100, 600)
     assert st.delta_H.dtype == jnp.float64
@@ -81,15 +80,6 @@ def test_expmdh_unity_f32_loose_forecast():
     model = _model("float32", refine=False, tol=1e-6)
     _, st = _run_chain(model, 100, 600)
     _assert_expmdh_unity(st)
-
-
-@pytest.mark.slow
-def test_expmdh_unity_fused_kernel():
-    """Fused Pallas CG (interpret mode on CPU) as the solver: the actual
-    single-chip TPU configuration, statistically."""
-    model = _model("float32", refine=True, tol=1e-10, fused=True)
-    _, st = _run_chain(model, 30, 80)
-    _assert_expmdh_unity(st, n_sigma=4.0, floor=2e-2)
 
 
 @pytest.mark.slow

@@ -3,7 +3,7 @@
 The reference's README quotes m_crit(beta=2) = -0.1968(9) from
 Christian/Jansen/Nagai/Pollakowski (Nucl. Phys. B 739 (2006)), determined
 from the PCAC quark-mass zero crossing -- the same method the tool
-implements on the TPU fast path.
+implements on the vmapped sampler.
 """
 
 import json

@@ -81,16 +81,3 @@ def test_committed_f32_table_passes():
     assert len(rows) >= 14
     bad = [r for r in rows if not (r["pass_Ep"] and r["pass_acc"])]
     assert not bad, bad
-
-
-def test_committed_tpu_packed_table_passes():
-    """The TPU fast-path table (lane-packed fused trajectory + df kernels,
-    even-odd action, real chip) must be green on the plaquette gate --
-    docs/CROSSCHECK_f32_tpu_packed.md; acceptance is informational there
-    (Schur-preconditioned action)."""
-    path = os.path.join(os.path.dirname(__file__), "golden",
-                        "crosscheck_f32_tpu_packed.json")
-    rows = json.load(open(path))
-    assert len(rows) >= 14
-    bad = [r for r in rows if not r["pass_Ep"]]
-    assert not bad, bad

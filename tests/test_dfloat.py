@@ -3,9 +3,8 @@
 Every claim in solvers/dfloat.py is checked here against REAL f64 (CPU).
 XLA:CPU's LLVM backend contracts mul+add into FMA inside fused loops,
 which breaks error-free transforms; tests that jit df code therefore
-compile with xla_backend_optimization_level=0 (the production target is
-TPU, whose backend preserves the transforms -- verified on v5e; the CLI
-gates on dfloat.eft_selfcheck()).
+compile with xla_backend_optimization_level=0 (the CLI gates the dfloat
+impl on dfloat.eft_selfcheck(); the default refinement is the x64 impl).
 """
 
 import dataclasses
@@ -82,8 +81,8 @@ def test_df_sum_all_vs_f64():
 
 def test_eft_selfcheck_detects_backend():
     """On this CPU backend (default opt level) the FMA contraction breaks
-    EFTs -- the selfcheck must say so (on TPU it returns True; the CLI
-    gates dfloat refinement on it)."""
+    EFTs -- the selfcheck must say so (the CLI gates dfloat refinement on
+    it)."""
     assert D.eft_selfcheck() is False
 
 
@@ -235,7 +234,7 @@ def test_gauge_action_df_drifted_matches_f64():
         model.geom, gops.links(theta.astype(jnp.float64), jnp.complex128),
         2.7))
     # eager: EFTs hold per-op, and the opt-level-0 compile of this jaxpr
-    # is pathological on XLA:CPU (~4 min; see cpu notes in test_pallas_traj)
+    # is pathological on XLA:CPU (~4 min)
     with jax.disable_jit():
         Sdf = float(eo_df.gauge_action_df(model.geom, theta, 2.7))
     assert abs(Sdf - S64) < 1e-6 * abs(S64)

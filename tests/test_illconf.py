@@ -1,7 +1,7 @@
 """Failure-time ill-configuration capture (reference src/hmc.cpp:48-56).
 
 The reference dumps the gauge configuration from inside Force the moment CG
-fails. The TPU runner's scanned phases instead capture the pre-trajectory
+fails. The runner's scanned phases instead capture the pre-trajectory
 configuration + trajectory index of the first failure per phase; with the
 deterministic key discipline (seed, traj_index) that pair reproduces the
 failing solve exactly. These tests starve CG (max_iter=1) and prove the

@@ -2,7 +2,7 @@
 
 A real multi-process run needs N hosts; what CI can pin down is (a) the
 degenerate single-process semantics every code path relies on, (b) that the
-DCN-aware mesh layout puts lattice axes on local devices, and (c) that the
+host-aware mesh layout puts lattice axes on local devices, and (c) that the
 no-cluster detection never initializes jax.distributed by accident.
 """
 
@@ -19,8 +19,8 @@ from schwingermodel_tpu.parallel.mesh import (
 
 def test_maybe_initialize_noop_without_cluster(monkeypatch):
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                "JAX_PROCESS_ID", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE",
-                "TPU_WORKER_HOSTNAMES"):
+                "JAX_PROCESS_ID", "SLURM_JOB_ID", "SLURM_NTASKS",
+                "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
     assert multihost.maybe_initialize() is False
     assert jax.process_count() == 1
@@ -37,7 +37,7 @@ def test_multihost_mesh_single_process_layout():
     # over all 8 local fake devices
     assert mesh.shape[CHAIN_AXIS_NAME] == 1
     assert mesh.shape[X_AXIS_NAME] * mesh.shape[T_AXIS_NAME] == 8
-    # each (x, t) plane must live inside one process (ICI-only halos)
+    # each (x, t) plane must live inside one process (host-local halos)
     procs = {d.process_index for d in mesh.devices.flat}
     assert procs == {0}
 

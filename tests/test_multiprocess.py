@@ -1,6 +1,6 @@
 """REAL multi-process execution: 2 OS processes, jax.distributed over a
 localhost coordinator, 2 virtual CPU devices each -> a 4-device global mesh
-with the chain axis spanning processes (the DCN-analog layout of
+with the chain axis spanning processes (the cross-host layout of
 parallel/multihost.py). This exercises what single-process tests cannot:
 cross-process collectives, gather_global on non-fully-addressable arrays,
 process-0-only file writes, distributed CLI bring-up, and checkpoint/resume
@@ -109,7 +109,7 @@ assert multihost.maybe_initialize("localhost:" + port, 2, pid)
 assert jax.process_count() == 2
 mesh = multihost.multihost_mesh(8, 8)
 assert mesh.devices.shape[0] == 2  # chain axis spans the processes
-# every (rx, rt) plane lives inside one process (no DCN halos)
+# every (rx, rt) plane lives inside one process (no cross-host halos)
 for plane in mesh.devices:
     assert len({{d.process_index for d in plane.flat}}) == 1
 from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams, RunParams

@@ -255,7 +255,7 @@ def test_dirac_inverse_eo_matches_full():
 
 @pytest.mark.parametrize("even_odd", [False, True])
 def test_condensate_f32_refined_shipped_contract(even_odd):
-    """The shipped TPU contract (f32 + cg.refine, tol=1e-10): every
+    """The shipped GPU contract (f32 + cg.refine, tol=1e-10): every
     condensate solve CONVERGES -- the round-3 verdict found this path
     stalled at the f32 residual floor and burned max_iter -- and the value
     matches the f64 dense Tr D^{-1} oracle fed the SAME noise vectors, to

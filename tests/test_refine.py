@@ -1,4 +1,4 @@
-"""Mixed-precision CG refinement: the f32 TPU path must meet the reference's
+"""Mixed-precision CG refinement: the f32 GPU path must meet the reference's
 f64 solver contract ||r|| < 1e-10 ||b|| (src/main.cpp:26-27,
 src/conjugate_gradient.cpp:45). See solvers/refine.py.
 
@@ -21,11 +21,11 @@ TOL = 1e-10
 
 
 def _model(Nx=8, Nt=8, dtype="float32", refine=True, even_odd=True,
-           fused=None, inner_tol=1e-5):
+           inner_tol=1e-5):
     return SchwingerModel(
         lattice=LatticeParams(Nx=Nx, Nt=Nt, real_dtype=dtype),
         hmc=HMCParams(
-            beta=2.0, m0=0.1, even_odd=even_odd, fused_cg=fused,
+            beta=2.0, m0=0.1, even_odd=even_odd,
             cg=CGParams(tol=TOL, max_iter=10000, refine=refine,
                         inner_tol=inner_tol),
         ),
@@ -114,21 +114,6 @@ def test_refine_full_d(rng):
     assert rel < 2 * TOL, rel
 
 
-def test_refine_with_fused_inner(rng):
-    """Fused Pallas kernel (interpret mode on CPU) as the f32 inner solver
-    inside the refinement loop -- the actual TPU configuration."""
-    model = _model(fused=True)
-    theta = jnp.asarray(random_theta(rng, 8, 8), dtype=jnp.float32)
-    ops = model.eo_ops(theta)
-    b = jnp.asarray(
-        (rng.standard_normal((2, 8, 4)) + 1j * rng.standard_normal((2, 8, 4))),
-        dtype=jnp.complex64)
-    res = model._solve_eo(theta, ops, b)
-    assert bool(res.converged)
-    rel = _true_rel_residual_eo(model, theta, b, res.x)
-    assert rel < 2 * TOL, rel
-
-
 def test_refine_uses_forecast_guess(rng):
     """A good x0 (the forecasting path) cuts inner iterations."""
     model = _model()
@@ -178,7 +163,7 @@ def test_refined_trajectory_dH_matches_f64(rng):
 # singular when m0+2 meets a real eigenvalue of H/2). At m0 = that + 1e-2
 # kappa(Dhat Dhat^+) ~ 2e5: far beyond the f32 inner solves' envelope
 # (refinement stagnates ~1e-4) yet comfortably inside f64's -- exactly the
-# near-critical exceptional-configuration regime of docs/PERF.md.
+# near-critical exceptional-configuration regime (PERF.md).
 
 M0_SING = -0.53215006
 

@@ -123,38 +123,3 @@ def test_cli_bad_mesh_rejected(tmp_path):
     )
     assert out.returncode == 1
     assert "not divisible" in out.stderr or "needs" in out.stderr
-
-
-def test_runner_packed_fast_path():
-    """run_hmc on an f32 even-odd model takes the lane-packed fused path
-    (interpret kernels on CPU) end to end: observables finite, acceptance
-    sane, SimData-compatible summary fields populated."""
-    from schwingermodel_tpu.config import CGParams
-
-    lat32 = LatticeParams(Nx=8, Nt=8, real_dtype="float32")
-    hmc32 = HMCParams(beta=2.0, m0=0.1, md_steps=6, trajectory_length=0.6,
-                      even_odd=True, packed=True,
-                      cg=CGParams(tol=1e-6, max_iter=2000))
-    res = run_hmc(lat32, hmc32, RunParams(n_therm=2, n_meas=4, n_chains=2,
-                                          seed=3))
-    assert res.acceptance_rate > 0.5
-    assert 0.3 < res.Ep < 0.95
-    assert np.isfinite(res.dEp)
-    assert np.asarray(res.chains["plaquette"]).size == 8
-
-
-@pytest.mark.slow
-def test_runner_packed_autotune():
-    """Autotune warmup rides the packed fast path too (dt is a traced
-    override of the packed trajectory)."""
-    from schwingermodel_tpu.config import CGParams
-
-    lat32 = LatticeParams(Nx=8, Nt=8, real_dtype="float32")
-    hmc32 = HMCParams(beta=2.0, m0=0.1, md_steps=4, trajectory_length=0.6,
-                      even_odd=True, packed=True,
-                      cg=CGParams(tol=1e-6, max_iter=2000))
-    res = run_hmc(lat32, hmc32,
-                  RunParams(n_therm=8, n_meas=4, n_chains=2, seed=5,
-                            autotune=True, n_tune=6))
-    assert res.acceptance_rate > 0.3
-    assert np.isfinite(res.Ep)

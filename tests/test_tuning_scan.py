@@ -155,8 +155,7 @@ def test_cg_forecast_saves_iterations_same_physics():
 
     The forecast quality scales with the MD step size (theta moves O(dt)
     between solves): at the flagship config (64x64, dt=0.01, tol 1e-6 f32)
-    the measured saving is ~28% of all iterations = 1.3x trajectory
-    throughput on the TPU. Here we use the same dt=0.01 at 8x8."""
+    the measured saving is ~28% of all iterations. Here we use the same dt=0.01 at 8x8."""
     m_fc = _model(quenched=False, even_odd=True,
                   trajectory_length=0.1,   # dt = 0.01 like the bench config
                   cg=CGParams(tol=1e-6, max_iter=10000))
